@@ -1,4 +1,4 @@
-"""infinitam_tpu — a TPU-native dense volumetric SLAM framework.
+"""infinitam_tpu — a dense volumetric SLAM framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of InfiniTAM v2
 (reference: ethz-asl/infinitam): per-frame depth→track→fuse→raycast on a TSDF

@@ -61,7 +61,10 @@ def main(argv=None):
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_default_matmul_precision", "highest")
+
+    from infinitam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from infinitam_tpu.calib import default_calib
     from infinitam_tpu.config import SceneParams, Settings

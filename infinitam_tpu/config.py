@@ -90,7 +90,7 @@ class PlainVoxelArrayParams:
 
 @dataclasses.dataclass(frozen=True)
 class BlockGridParams:
-    """TPU-native raycast acceleration: a dense block→VBA-pointer grid cached
+    """Raycast acceleration: a dense block→VBA-pointer grid cached
     over the working volume, so hot-path voxel reads cost one int gather
     instead of a hash-chain walk. Purely an accelerator — the hash table
     stays canonical (unbounded world, swapping); blocks outside the grid fall
@@ -128,9 +128,6 @@ class TrackingParams:
     divergence_f_threshold: float = 1e4
     # Run ICP only down to this level (reference noICPRunTillLevel=0).
     no_icp_run_till_level: int = 0
-    # Flagship Pallas ICP residual kernel (ops/pallas/icp_kernel.py): used on
-    # TPU; CPU (tests) falls back to the XLA-gather oracle in ops/icp.py.
-    use_pallas_icp: bool = True
     # Color tracker (reference: ITMColorTracker.cpp): LM trust region.
     color_n_levels: int = 4
     color_skip_points: bool = True
@@ -152,39 +149,6 @@ class Settings:
     # safe_alloc_stride() to derive it instead of guessing (a 8 cm block
     # spans ≥14 px at 3 m with f=525 → stride ≤7; 4 cm blocks → ≤3).
     alloc_subsample: int = 4
-    # hierarchical raycast: coarse pass at 1/factor res bounds the full-res
-    # march (1 disables; requires image dims divisible by the factor). With
-    # straggler compaction in the march (ops/raycast.py) the coarse pass
-    # rarely pays for itself, so it is off by default.
-    raycast_coarse_factor: int = 1
-    # Flagship Pallas raycast kernel (ops/pallas/raycast_kernel.py): used on
-    # TPU when the image tiles evenly; CPU (tests) and odd sizes fall back to
-    # the XLA oracle march in ops/raycast.py.
-    use_pallas_raycast: bool = True
-    raycast_t_march: int = 64  # static bound on adaptive march steps per ray
-    # KP: voxel blocks resident per 16×16 tile. March cost scales ~linearly
-    # with KP. Measured distributions (tools/page_stats.py, synthetic scene):
-    # 1 cm voxels mean 12 / max 26 pages per tile; 5 mm mean ~19 / max ~39.
-    # Tiles beyond KP drop their FARTHEST pages (near-first slot order) —
-    # degradation, not corruption, counted in FrameDiagnostics.n_pool_overflow.
-    raycast_pages_per_tile: int = 32
-    # Tiered KP (r5): tiles whose page count fits this bound march in a
-    # separate low-KP kernel launch (page counts are heavy-tailed — ~80% of
-    # tiles fit a KP ~p80 while the worst tile needs 2-3×). 0 disables the
-    # split (single launch at raycast_pages_per_tile).
-    raycast_pages_small: int = 16
-    # NP: visible blocks considered by the page-list builder (visible_ids is
-    # compacted, so this slices the nearest-allocated prefix; pages stream
-    # from HBM in the kernel so there is NO VMEM pool limit — this only caps
-    # the XLA-side projection/sort work). Typical visible counts are 1-2 k at
-    # 1 cm voxels, ~4× that at the 5 mm reference operating point; overflow
-    # is counted in FrameDiagnostics.n_render_overflow.
-    raycast_page_blocks: int = 4096
-    # Flagship Pallas integrate kernel (ops/pallas/integrate_kernel.py): one
-    # grid step per visible block, in-place packed-row write-back; fuses
-    # depth AND (since r4) color on TPU. CPU (tests) falls back to the XLA
-    # gather→update→scatter path.
-    use_pallas_integrate: bool = True
     tracking: TrackingParams = TrackingParams()
     tracker_type: TrackerType = TrackerType.ICP
     swapping_mode: SwappingMode = SwappingMode.DISABLED
@@ -196,11 +160,11 @@ class Settings:
     # Raycast expected-depth subsampling (reference minmaximg_subsample=8,
     # DeviceAgnostic/ITMVisualisationEngine.h:24).
     minmax_subsample: int = 8
-    # Static cap on blocks fused per frame (TPU shapes are static; blocks
+    # Static cap on blocks fused per frame (XLA shapes are static; blocks
     # beyond the cap keep their values and fuse on a later frame — same
     # graceful degradation as the reference's fixed SDF_LOCAL_BLOCK_NUM).
     # 0 → process the whole visible list. Wired in
-    # hash_pipeline.integrate_into_scene and the Pallas integrate kernel.
+    # hash_pipeline.integrate_into_scene.
     max_fused_blocks: int = 8192
     # Static cap on visible blocks rasterized into the expected-depth minmax
     # image per frame (same graceful-degradation semantics as above).
@@ -216,9 +180,8 @@ class Settings:
 
 def safe_alloc_stride(settings: Settings, focal_px: float) -> int:
     """Largest allocation-ray stride that still guarantees ≥2 taps across a
-    block's projected footprint at the FAR frustum plane (ADVICE r3: derive
-    the stride from voxel_size·block_size, focal length, and
-    view_frustum_max instead of a hard-coded comment)."""
+    block's projected footprint at the FAR frustum plane, derived from
+    voxel_size·block_size, focal length and view_frustum_max."""
     block_m = settings.scene.voxel_size * settings.hashing.block_size
     min_footprint_px = focal_px * block_m / settings.scene.view_frustum_max
     return max(1, int(min_footprint_px // 2))

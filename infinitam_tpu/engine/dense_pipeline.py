@@ -8,7 +8,7 @@ track→fuse→raycast slice. Orchestration parity:
   has no allocation step, integration touches the whole grid
 - ITMTrackingController::Track/Prepare (ITMTrackingController.cpp:11-46)
 
-TPU-native: one jitted `process_frame` per (settings, image size); the whole
+Design: one jitted `process_frame` per (settings, image size); the whole
 frame — tracker LM loops included — executes on-device with no host syncs.
 """
 
@@ -53,7 +53,7 @@ def integrate_frame_dense(
     rgb = None
     if settings.use_color and view.rgb is not None:
         # reference: M_rgb = trafo_rgb_to_depth.calib_inv * M_d
-        M_rgb = se3.invert(rgb_to_depth) @ pose if rgb_to_depth is not None else pose
+        M_rgb = se3.matmul(se3.invert(rgb_to_depth), pose) if rgb_to_depth is not None else pose
         rgb = view.rgb
     sdf, w, clr, wc = tsdf.integrate_dense(
         vol.sdf,

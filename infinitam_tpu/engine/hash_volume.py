@@ -1,11 +1,11 @@
-"""Voxel-block-hash world model: SoA hash table + block array, TPU-native.
+"""Voxel-block-hash world model: SoA hash table + block array.
 
 Reference parity: ITMLib/Objects/ITMVoxelBlockHash.h:22 (2^20 ordered buckets
 + excess chain entries), ITMLocalVBA.h:19 (block storage + free list), and the
 allocation protocol of ITMSceneReconstructionEngine_CUDA.cu:350-495
 (buildHashAllocAndVisibleType → allocateVoxelBlocksList → buildVisibleList).
 
-TPU-native design decisions (SURVEY.md §7):
+Design decisions (SURVEY.md §7):
 - the hash table is three flat int arrays (pos/ptr/offset) probed with
   vectorized gathers and a statically-unrolled chain walk — no pointers;
 - CUDA's atomic free-list pops become a cumsum over the per-entry allocation
@@ -35,10 +35,8 @@ SWAPPED_PTR = -1  # allocated, streamed out to the host tier
 # (ITMLibDefines.h:80-106 — sdf as short scaled by 32767, w_depth/w_color as
 # uchar, clr as uchar3). Here the depth voxel packs into ONE int32 lane
 # (sdf:int16 << 16 | w:uint8 << 8) and the color voxel into a second
-# (r<<24|g<<16|b<<8|w_color): the hot phases are gather/scatter-bound, one
-# plane halves their transaction count, and the Pallas kernels want
-# (1, 512)-int32 row blocks (int32 is the only dtype whose dynamic row
-# loads/stores Mosaic handles robustly — PERF_NOTES.md).
+# (r<<24|g<<16|b<<8|w_color): the hot phases are gather/scatter-bound, and
+# one plane halves their transaction count.
 SDF_SCALE = 32767.0
 VOX_INIT = jnp.int32(32767 << 16)  # empty space: sdf = 1.0, w = 0
 
@@ -125,9 +123,8 @@ class HashVolume(NamedTuple):
     excess_list: jnp.ndarray  # [X] int32 free excess-entry stack
     last_free_excess: jnp.ndarray  # scalar int32
     vox_rgb: Optional[jnp.ndarray] = None  # [B, S³] int32 packed r,g,b,w_color
-    # --- incrementally-maintained accelerator caches (round-3 perf: the
-    # per-frame rebuilds were 9 ms each and the E-sized visible compaction
-    # 13.7 ms — VERDICT r2 "trim alloc to ≤10 ms"). All three are exact
+    # --- incrementally-maintained accelerator caches (a per-frame rebuild
+    # would scan all E entries). Both are exact
     # mirrors of the hash state, updated at every mutation site
     # (insert_blocks, swap_out_blocks, reallocate_swapped_out):
     # dense cell→entry grid over the working window, [G³] flat int32 packed
@@ -143,8 +140,8 @@ class RenderStateVH(NamedTuple):
     The compact `visible_ids` list is canonical. `visible_type` keeps the
     reference's per-entry code plane for the swapping protocol and the legacy
     (oracle) alloc path; the fast alloc path maintains it only when swapping
-    is on. `cell_claim`/`entry_epoch`/`epoch` power the compact allocator
-    (round 4/5, VERDICT r3 item 1b / r4 item 1): `cell_claim[c]` holds the
+    is on. `cell_claim`/`entry_epoch`/`epoch` power the compact allocator:
+    `cell_claim[c]` holds the
     index of the candidate row that last claimed grid cell c — cells touched
     THIS frame always hold a current claim (the scatter rewrites them), so a
     claim is validated by checking the claimed row back (`c2_cell[j] == c`),
@@ -242,7 +239,7 @@ class ProbeResult(NamedTuple):
 
 def pack_entries(vol: HashVolume) -> jnp.ndarray:
     """[E, 5] int32 (pos.xyz, ptr, offset) — one row-gather per chain link
-    instead of three separate table gathers (TPU gather-count optimization)."""
+    instead of three separate table gathers."""
     return jnp.concatenate(
         [vol.entry_pos, vol.entry_ptr[:, None], vol.entry_offset[:, None]], axis=1
     )
@@ -474,9 +471,9 @@ def execute_allocations(
 
 def build_entry_grid(vol: HashVolume, grid_params) -> jnp.ndarray:
     """Dense block→hash-entry index grid over the working volume, the
-    candidate-space allocation accelerator (TPU-native; the reference probes
-    the hash per pixel instead, buildHashAllocAndVisibleTypePP — hash-chain
-    gathers are the TPU budget, one dense-grid tap is ~10× cheaper).
+    candidate-space allocation accelerator (the reference probes the hash
+    per pixel instead, buildHashAllocAndVisibleTypePP; one dense-grid tap
+    replaces a chain walk of up to MAX_PROBE gathers).
 
     [G³] flat int32, packed `(entry_idx << 1) | swapped`; −1 = no allocated
     entry for that cell. Includes swapped-out entries (ptr == −1) so the
@@ -600,8 +597,8 @@ def get_block_grid(vol: HashVolume, grid_params, params: VoxelBlockHashParams) -
 
 
 def build_block_grid(vol: HashVolume, grid_params, params) -> jnp.ndarray:
-    """Dense block→VBA-pointer index grid over the working volume (TPU-native
-    raycast accelerator; see config.BlockGridParams). [Gx, Gy, Gz] int32 with
+    """Dense block→VBA-pointer index grid over the working volume (raycast
+    accelerator; see config.BlockGridParams). [Gx, Gy, Gz] int32 with
     −1 = unallocated; built by one scatter over the hash entries."""
     gx, gy, gz = grid_params.dims
     ox, oy, oz = grid_params.origin
@@ -679,7 +676,7 @@ def check_block_visibility(
     for dx in (0, 1):
         for dy in (0, 1):
             for dz in (0, 1):
-                co = R @ (jnp.array([dx, dy, dz], dtype=jnp.float32) * factor)
+                co = (R[:, 0] * dx + R[:, 1] * dy + R[:, 2] * dz) * factor
                 z = pz0 + co[2]
                 ok = z >= 1e-10
                 zs = jnp.where(ok, z, 1.0)
@@ -701,9 +698,7 @@ def check_block_visibility_planes(
     enlarged: bool = False,
 ) -> jnp.ndarray:
     """check_block_visibility on pre-split component planes — for callers
-    whose positions come from flat gathers (a [N, 3] gather puts the 3-wide
-    minor dim in the 128-lane axis and runs ~40× under peak; three flat [N]
-    gathers avoid it — PERF_NOTES layout rules)."""
+    whose positions come from flat [N] gathers."""
     H, W = img_size
     fx, fy, cx, cy = proj[0], proj[1], proj[2], proj[3]
     factor = block_size * voxel_size
@@ -724,7 +719,7 @@ def check_block_visibility_planes(
     for dx in (0, 1):
         for dy in (0, 1):
             for dz in (0, 1):
-                co = R @ (jnp.array([dx, dy, dz], dtype=jnp.float32) * factor)
+                co = (R[:, 0] * dx + R[:, 1] * dy + R[:, 2] * dz) * factor
                 z = pz0 + co[2]
                 ok = z >= 1e-10
                 zs = jnp.where(ok, z, 1.0)

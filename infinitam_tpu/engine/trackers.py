@@ -5,11 +5,12 @@ coarse→fine level sweep, per-level Levenberg accept/reject loop, small-angle
 updates, |step|/6 convergence), ITMTrackerFactory.h (tracker selection),
 ITMCompositeTracker.h, ITMExternalTracker.cpp, ITMIMUTracker.cpp.
 
-TPU-native design: the whole TrackCamera runs as ONE jitted function. Levels
-unroll statically (shapes differ per level); the per-level iteration loop is a
-`lax.fori_loop` whose body evaluates residuals, reduces the 6×6 normal
-equations on the MXU, adapts λ, solves, and applies the increment — all
-on-device, no per-iteration host sync. Batched sequences vmap over this.
+Design: the whole TrackCamera runs as ONE jitted function. Levels unroll
+statically (shapes differ per level); the per-level iteration loop is a
+`lax.while_loop` whose body evaluates residuals, reduces the 6×6 normal
+equations with one matmul, adapts λ, solves, and applies the increment — all
+in the one program (XLA's GPU while loop still reads its predicate on the
+host each iteration). Batched sequences vmap over this.
 """
 
 from __future__ import annotations
@@ -111,20 +112,6 @@ def track_depth(
     f_final = jnp.array(1e5, dtype=jnp.float32)
     n_final = jnp.array(0, dtype=jnp.int32)
 
-    # Flagship TPU residual pass (ops/pallas/icp_kernel.py): windowed
-    # one-hot-matmul bilinear map taps instead of 20 ms of XLA gathers per
-    # fine-level iteration. CPU (tests) falls back to the XLA oracle.
-    use_pallas = params.use_pallas_icp and jax.default_backend() == "tpu"
-    planes = None
-    weight_tiles: List[Optional[jnp.ndarray]] = [None] * params.n_levels
-    if use_pallas:
-        from infinitam_tpu.ops.pallas import icp_kernel as ik
-
-        planes = ik.prep_maps(points_map, normals_map)
-        weight_tiles = [
-            None if w is None else ik.tileize(w).reshape(-1) for w in weight_pyr
-        ]
-
     for lvl in range(params.n_levels - 1, params.no_icp_run_till_level - 1, -1):
         mode = modes[lvl]
         d_lvl = depth_pyr[lvl]
@@ -133,41 +120,26 @@ def track_depth(
         dist_thresh = dists[lvl]
         n_iter = iters[lvl]
 
-        w_tiles = weight_tiles[lvl]
-
-        # SCALARIZED GN state (see ops/icp.py "Scalarized GN-iteration
+        # Scalar GN state (see ops/icp.py "Scalarized GN-iteration
         # helpers"): the loop carries pose/hessian/nabla as tuples of 0-d
         # scalars so the accept/reject + damped solve + SE3 update run as a
-        # pure scalar graph — each array↔scalar boundary inside a lax loop
-        # costs ~0.2 ms, and the array form paid it several times per
-        # iteration (tracker floor ~0.5 ms/iter of glue).
+        # pure scalar graph around the one residual + reduction pass.
         def body(_i, s, *, d_lvl=d_lvl, vproj=vproj, mode=mode,
-                 dist_thresh=dist_thresh, w_lvl=w_lvl, w_tiles=w_tiles, lvl=lvl):
+                 dist_thresh=dist_thresh, w_lvl=w_lvl):
             (ip, ip_good, f_old0, h_good0, g_good0, lam0, done0,
              f_last0, n_last0) = s
             ip_mat = icp.mat_from_pose12(ip)
-            if use_pallas:
-                from infinitam_tpu.ops.pallas import icp_kernel as ik
-
-                b, A, valid = ik.residuals_tiles(
-                    d_lvl, vproj, planes, view_proj, ip_mat, scene_pose,
-                    dist_thresh, points_map.shape[:2], lvl,
-                )
-                gh = icp.reduce_gh(
-                    b, A, valid, params.min_valid_points, weights=w_tiles
-                )
-            else:
-                b, A, valid, _p = icp.compute_residuals(
-                    d_lvl,
-                    vproj,
-                    points_map,
-                    normals_map,
-                    view_proj,  # scene maps are full-res → level-0 intrinsics
-                    ip_mat,
-                    scene_pose,
-                    dist_thresh,
-                )
-                gh = icp.reduce_gh(b, A, valid, params.min_valid_points, weights=w_lvl)
+            b, A, valid, _p = icp.compute_residuals(
+                d_lvl,
+                vproj,
+                points_map,
+                normals_map,
+                view_proj,  # scene maps are full-res → level-0 intrinsics
+                ip_mat,
+                scene_pose,
+                dist_thresh,
+            )
+            gh = icp.reduce_gh(b, A, valid, params.min_valid_points, weights=w_lvl)
 
             # ONE array→scalar crossing: extract f, N, ∇, H as scalars
             f = gh.f
@@ -270,7 +242,7 @@ def track_color(
     grads = [(gradient_x(p), gradient_y(p)) for p in pyr]
     mask = ct.skip_points_mask(locations.shape[:2], skip_points)
 
-    M = depth_to_rgb @ pose  # pose in the rgb frame
+    M = se3.matmul(depth_to_rgb, pose)  # pose in the rgb frame
     n_last = jnp.array(0, dtype=jnp.int32)
     f_last = jnp.array(1e5, dtype=jnp.float32)
 
@@ -293,10 +265,13 @@ def track_color(
             step = -d
             small = jnp.max(jnp.abs(step)) < MIN_STEP
 
-            M2 = se3.coerce(se3.se3_exp(step) @ M_)
+            M2 = se3.coerce(se3.matmul(se3.se3_exp(step), M_))
             f2, _ = ct.color_f(locations, colours, img, proj_l, M2, mask)
 
-            pred = -(jnp.dot(gh.nabla, step) + 0.5 * step @ gh.hessian @ step)
+            pred = -(
+                jnp.dot(gh.nabla, step, precision=se3.HIGHEST)
+                + 0.5 * jnp.dot(step, se3.matmul(gh.hessian, step), precision=se3.HIGHEST)
+            )
             rho = (gh.f - f2) / jnp.where(jnp.abs(pred) < 1e-20, 1e-20, jnp.abs(pred))
             success = rho > G2
             lam_new = jnp.where(rho > G1, lam_ / 2.0, jnp.where(success, lam_, lam_ * 4.0))
@@ -310,7 +285,7 @@ def track_color(
         init = (M, jnp.array(jnp.inf, dtype=jnp.float32), jnp.array(0.01, dtype=jnp.float32), jnp.array(False), jnp.array(0, dtype=jnp.int32))
         M, f_last, _lam, _done, _steps = jax.lax.while_loop(cond, body, init)
 
-    new_pose = se3.coerce(rgb_to_depth @ M)
+    new_pose = se3.coerce(se3.matmul(rgb_to_depth, M))
     _f, n_last = None, jnp.sum((locations[..., 3] > 0) & mask).astype(jnp.int32)
     return TrackResult(pose=new_pose, f=f_last, num_valid=n_last)
 
@@ -352,7 +327,7 @@ def track_ren(
         step = -icp._solve_psd(A, nabla)
         small = jnp.max(jnp.abs(step)) < MIN_STEP
 
-        inv2 = se3.coerce(rt.delta_matrix(step) @ inv_)
+        inv2 = se3.coerce(se3.matmul(rt.delta_matrix(step), inv_))
         f2 = rt.energy(read, pts_cam, inv2, one_over_voxel)
         accept = f2 < f_
         tiny = jnp.abs(f2 - f_) / jnp.maximum(jnp.abs(f_), 1e-12) < MIN_DECREASE
@@ -388,7 +363,7 @@ def track_external(pose: jnp.ndarray, external_pose: jnp.ndarray) -> TrackResult
 def apply_imu_rotation(pose: jnp.ndarray, delta_rot: jnp.ndarray) -> jnp.ndarray:
     """Pre-rotate the pose by a differential IMU rotation before ICP
     (reference: ITMIMUTracker.cpp:17-22 — composite IMU→ICP tracker)."""
-    R = pose[:3, :3] @ delta_rot
+    R = se3.matmul(pose[:3, :3], delta_rot)
     return se3.coerce(se3.pack_rt(R, pose[:3, 3]))
 
 

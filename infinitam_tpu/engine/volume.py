@@ -1,6 +1,6 @@
 """World-model state: dense voxel array volume (+ accessors).
 
-TPU-native re-design of the reference's scene objects
+Re-design of the reference's scene objects
 (reference: ITMLib/Objects/ITMScene.h:20, ITMPlainVoxelArray.h:21,
 ITMLibDefines.h voxel structs): instead of an array-of-structs of voxels, the
 volume is a struct-of-arrays pytree of jnp arrays — SDF and weight planes —
@@ -27,7 +27,7 @@ class DenseVolume(NamedTuple):
 
     Arrays are indexed [z, y, x] (z-major like the reference's linear index
     x + y*sx + z*sx*sy — we keep x fastest-moving as the last axis so layout
-    matches and the last dim can map to TPU lanes).
+    matches).
     """
 
     sdf: jnp.ndarray  # [Z, Y, X] float32, init 1.0

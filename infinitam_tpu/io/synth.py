@@ -33,7 +33,7 @@ def scene_sdf(p: jnp.ndarray) -> jnp.ndarray:
     # box at (-0.55, -0.2, 1.8), half-extents (0.25, 0.3, 0.25), rotated 30° about y
     c, s = np.cos(0.5), np.sin(0.5)
     Rb = jnp.array([[c, 0, -s], [0, 1, 0], [s, 0, c]], dtype=jnp.float32)
-    q = jnp.einsum("ij,...j->...i", Rb, p - jnp.array([-0.55, -0.2, 1.8]))
+    q = se3.rotate(Rb, p - jnp.array([-0.55, -0.2, 1.8]))
     hb = jnp.array([0.25, 0.3, 0.25])
     dq = jnp.abs(q) - hb
     d_box = jnp.linalg.norm(jnp.maximum(dq, 0.0), axis=-1) + jnp.minimum(
@@ -78,7 +78,7 @@ def render_depth(
     dir_cam = jnp.stack([(xs - cx) / fx, (ys - cy) / fy, jnp.ones_like(xs)], axis=-1)
     ray_scale = jnp.linalg.norm(dir_cam, axis=-1)  # |d| for unit z
     origin = inv[:3, 3]
-    dir_world = jnp.einsum("ij,hwj->hwi", inv[:3, :3], dir_cam)
+    dir_world = se3.rotate(inv, dir_cam)
     dir_world = dir_world / jnp.maximum(
         jnp.linalg.norm(dir_world, axis=-1, keepdims=True), 1e-12
     )
@@ -115,7 +115,7 @@ def render_rgbd(
     ys = jnp.arange(H, dtype=jnp.float32)[:, None].repeat(W, axis=1)
     z = jnp.where(depth > 0, depth, 1.0)
     p_cam = jnp.stack([z * (xs - cx) / fx, z * (ys - cy) / fy, z], axis=-1)
-    p_world = jnp.einsum("ij,hwj->hwi", inv[:3, :3], p_cam) + inv[:3, 3]
+    p_world = se3.apply(inv, p_cam)
     rgb = jnp.where((depth > 0)[..., None], scene_color(p_world), 0.0)
     return depth, rgb
 

@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import jax.numpy as jnp
 
 from infinitam_tpu.ops.pixel import bilinear, in_bounds
+from infinitam_tpu.utils import se3
 
 
 class ColorFG(NamedTuple):
@@ -34,7 +35,7 @@ def _project_points(locations, M, proj, img_size):
     fx, fy, cx, cy = proj[0], proj[1], proj[2], proj[3]
     valid = locations[..., 3] > 0
     p_cam = (
-        jnp.einsum("ij,...j->...i", M[:3, :3], locations[..., :3]) + M[:3, 3]
+        se3.apply(M, locations[..., :3])
     )
     z = p_cam[..., 2]
     valid &= z > 0
@@ -118,7 +119,7 @@ def color_g(
     J = du[..., None] * gx_obs[..., None, :] + dv[..., None] * gy_obs[..., None, :]
 
     grad = jnp.sum(J * diff_d[..., None, :], axis=-1)  # [..., 6]
-    hess = 2.0 * jnp.einsum("...ic,...jc->...ij", J, J)  # [..., 6, 6]
+    hess = 2.0 * jnp.einsum("...ic,...jc->...ij", J, J, precision=se3.HIGHEST)  # [..., 6, 6]
 
     w = valid.astype(jnp.float32)
     n_valid = jnp.sum(valid)
@@ -126,8 +127,8 @@ def color_g(
     scale = jnp.where(n_valid > 0, n_total / jnp.maximum(n_valid, 1), 1.0)
 
     flat_w = w.reshape(-1)
-    nabla = jnp.einsum("n,ni->i", flat_w, grad.reshape(-1, 6)) * scale
-    hessian = jnp.einsum("n,nij->ij", flat_w, hess.reshape(-1, 6, 6)) * scale
+    nabla = jnp.einsum("n,ni->i", flat_w, grad.reshape(-1, 6), precision=se3.HIGHEST) * scale
+    hessian = jnp.einsum("n,nij->ij", flat_w, hess.reshape(-1, 6, 6), precision=se3.HIGHEST) * scale
 
     obs_diff = obs - colours[..., :3]
     f_sum = jnp.sum(jnp.where(valid, jnp.sum(obs_diff * obs_diff, axis=-1), 0.0))

@@ -1,12 +1,11 @@
 """Raycasting: sphere-traced TSDF surface extraction + ICP map synthesis.
 
-TPU-native design: instead of one divergent while-loop per CUDA thread
+Plain-XLA design: instead of one divergent while-loop per CUDA thread
 (reference: DeviceAgnostic/ITMVisualisationEngine.h:92-158 castRay), the whole
-image marches in lock-step inside a single `lax.while_loop` whose state is the
-full [H, W] ray front; finished rays are masked out. Random-access voxel
-gathers remain, so this path is the CPU-testable ORACLE; the TPU flagship
-raycast is the tile-paged Pallas kernel in ops/pallas_raycast.py (see
-PERF_NOTES.md for why XLA gathers cannot be made fast here).
+image marches in lock-step inside `lax` loops whose state is the full [H, W]
+ray front; finished rays are masked out. This is the reference path and the
+CPU path; on a GPU the hash pipeline marches the same rays with the Triton
+kernel of ops/raycast_kernel.py, one program per tile of rays.
 
 Map synthesis (points/normals/shading) reference:
 DeviceAgnostic/ITMVisualisationEngine.h:160-409 (computeNormalAndAngle image-
@@ -26,12 +25,16 @@ from infinitam_tpu.ops.voxel_access import (
     read_sdf_interpolated,
     read_sdf_uninterpolated,
 )
+from infinitam_tpu.utils import se3
 
 
 class RaycastResult(NamedTuple):
     # [H, W, 4]: xyz = hit position in *voxel units* (world grid frame),
     # w = 1.0 found / 0.0 miss (reference: raycastResult image semantics).
     points: jnp.ndarray
+    # visible blocks left out of the expected-depth ranges as too large to
+    # rasterize (hash volume only; see hash_pipeline.expected_depth_ranges)
+    n_too_big_blocks: jnp.ndarray | None = None
 
 
 def pixel_rays(
@@ -52,7 +55,7 @@ def pixel_rays(
 
     def to_world_voxels(z):
         pc = dir_cam * z[..., None]
-        pw = jnp.einsum("ij,hwj->hwi", inv_M[:3, :3], pc) + inv_M[:3, 3]
+        pw = se3.apply(inv_M, pc)
         return pw * one_over_voxel_size
 
     pt_start = to_world_voxels(zmin)
@@ -79,10 +82,10 @@ def raycast_rays(
 
     Semantics follow the reference castRay: step sdf·(mu/voxelSize) clamped
     to ≥1 voxel inside allocated space; stop on sign change; trilinear secant
-    refinement. Differences (deliberate, TPU-first):
+    refinement. Differences (deliberate):
     - the march reads UNINTERPOLATED only (the reference also trilinearly
-      re-reads inside the −0.5..0.1 band every step, castRay:135-138 — on
-      TPU both predicated branches execute, so that would cost 9 probes/step);
+      re-reads inside the −0.5..0.1 band every step, castRay:135-138 — in a
+      lock-step march both predicated branches execute, 9 probes/step);
     - through unallocated space the step is a DDA clamp to the current
       block's exit instead of the blind 8-voxel jump (castRay:131), which
       can clear the whole ±mu shell and lose the ray — a known InfiniTAM
@@ -121,12 +124,11 @@ def raycast_rays(
         active=jnp.ones(shape, dtype=bool) if active_init is None else active_init,
     )
 
-    # Two-phase march (TPU-native; the CUDA reference lets each thread exit
-    # early, but a lock-step march pays EVERY ray's cost until the slowest
-    # straggler finishes — measured: mean ~12 steps/ray yet 84 lock-step
-    # iterations). Phase 1: a fixed-count march over the full bundle. Phase
-    # 2: compact the surviving stragglers (~1/8 of rays) into a small dense
-    # bundle and march those to completion, then scatter back.
+    # Two-phase march (the CUDA reference lets each thread exit early, but a
+    # lock-step march pays EVERY ray's cost until the slowest straggler
+    # finishes). Phase 1: a fixed-count march over the full bundle. Phase 2:
+    # compact the surviving stragglers into a small dense bundle and march
+    # those to completion, then scatter back.
     PHASE1 = 20
     final = jax.lax.fori_loop(
         0, PHASE1, lambda _i, s: body(s, ray_dir, len_end), init
@@ -221,52 +223,6 @@ def generic_raycast(
     return RaycastResult(points=points)
 
 
-def refine_ranges_from_coarse(
-    points_coarse: jnp.ndarray,  # [Hc, Wc, 4] coarse raycast (voxel units)
-    M: jnp.ndarray,  # world→camera
-    voxel_size: float,
-    img_size: Tuple[int, int],
-    factor: int,
-    margin_m: float,
-    zmin0: jnp.ndarray,
-    zmax0: jnp.ndarray,
-):
-    """Tighten per-pixel raycast ranges from a coarse-pass depth (TPU-native
-    hierarchical raycast — no reference analogue; CUDA per-thread early exit
-    makes stragglers cheap there, while the lock-step march here pays for the
-    slowest ray, so bounding the march is the big lever).
-
-    Full-res ranges become [min3×3(z_coarse)−margin, max3×3(z_coarse)+margin];
-    pixels whose coarse 3×3 neighbourhood contains a miss fall back to the
-    original conservative ranges (silhouette safety)."""
-    H, W = img_size
-    Hc, Wc = points_coarse.shape[:2]
-    found = points_coarse[..., 3] > 0
-    pw = points_coarse[..., :3] * voxel_size
-    z = jnp.einsum("ij,hwj->hwi", M[:3, :3], pw)[..., 2] + M[2, 3]
-    z = jnp.where(found, z, 0.0)
-
-    big = 1e9
-    zmin_n = jnp.full((Hc, Wc), big, dtype=jnp.float32)
-    zmax_n = jnp.full((Hc, Wc), -big, dtype=jnp.float32)
-    all_found = jnp.ones((Hc, Wc), dtype=bool)
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            zs = jnp.roll(z, (dy, dx), axis=(0, 1))
-            fs = jnp.roll(found, (dy, dx), axis=(0, 1))
-            zmin_n = jnp.minimum(zmin_n, jnp.where(fs, zs, big))
-            zmax_n = jnp.maximum(zmax_n, jnp.where(fs, zs, -big))
-            all_found &= fs
-
-    rows = jnp.clip(jnp.arange(H) // factor, 0, Hc - 1)
-    cols = jnp.clip(jnp.arange(W) // factor, 0, Wc - 1)
-    up = lambda a: a[rows][:, cols]
-    ok = up(all_found)
-    zmin = jnp.where(ok, jnp.maximum(up(zmin_n) - margin_m, zmin0), zmin0)
-    zmax = jnp.where(ok, jnp.minimum(up(zmax_n) + margin_m, zmax0), zmax0)
-    return zmin, zmax
-
-
 def _normals_planes(
     px: jnp.ndarray,  # [H,W] raycast point components, voxel units
     py: jnp.ndarray,
@@ -276,11 +232,8 @@ def _normals_planes(
     light_source: jnp.ndarray,  # [3]
     use_smoothing: bool = True,
 ):
-    """Core of compute_normals_image_space on component PLANES — every op
-    is a full-[H,W] VPU pass. The channel-last [H,W,4] formulation put the
-    4-wide minor dim in the 128-lane axis and poisoned the layout of the
-    whole raycast→maps chain (~7 ms/frame at 640×480 — PERF_NOTES layout
-    rules). Returns (nx, ny, nz, angle, valid)."""
+    """Core of compute_normals_image_space on component planes — every op
+    is a full-[H,W] elementwise pass. Returns (nx, ny, nz, angle, valid)."""
     H, W = px.shape
 
     def sh(a, dy, dx):
@@ -441,7 +394,7 @@ def forward_render(
     ITMVisualisationEngine_CUDA.cu:314-380): scatter the previous raycast
     into the new view, then raycast ONLY the missing pixels.
 
-    TPU-native: the missing set is compacted with nonzero(size=H·W/cap) into
+    The missing set is compacted with nonzero(size=H·W/cap) into
     a dense ray bundle (the analogue of findMissingPoints_device's prefix-sum
     compaction) so the march costs a fraction of a full raycast; overflow
     pixels beyond the cap stay holes until the next full raycast.
@@ -457,7 +410,7 @@ def forward_render(
     valid = idx >= 0
     idx_c = jnp.clip(idx, 0, H * W - 1)
 
-    inv_M = se3_invert(M)
+    inv_M = se3.invert(M)
     pt_start, ray_dir, len_start, len_end = pixel_rays(
         inv_M, proj, img_size, one_over_voxel_size, zmin, zmax
     )
@@ -477,12 +430,6 @@ def forward_render(
     return RaycastResult(points=out.reshape(H, W, 4))
 
 
-def se3_invert(M: jnp.ndarray) -> jnp.ndarray:
-    from infinitam_tpu.utils import se3 as _se3
-
-    return _se3.invert(M)
-
-
 def forward_project(
     points_map_m: jnp.ndarray,  # [H,W,4] metres, w>0 valid (prev raycast * voxelSize)
     M: jnp.ndarray,  # world→camera of the NEW pose
@@ -496,7 +443,7 @@ def forward_project(
     H, W = img_size
     fx, fy, cx, cy = proj[0], proj[1], proj[2], proj[3]
     valid = points_map_m[..., 3] > 0
-    pc = jnp.einsum("ij,hwj->hwi", M[:3, :3], points_map_m[..., :3]) + M[:3, 3]
+    pc = se3.apply(M, points_map_m[..., :3])
     z = jnp.where(pc[..., 2] <= 0, 1.0, pc[..., 2])
     u = fx * pc[..., 0] / z + cx
     v = fy * pc[..., 1] / z + cy

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from infinitam_tpu.ops.voxel_access import ReadFn, read_sdf_uninterpolated
+from infinitam_tpu.utils import se3
 
 DTUNE = 6.0
 
@@ -77,7 +78,7 @@ def energy(read: ReadFn, pts_cam: jnp.ndarray, inv_M: jnp.ndarray, one_over_voxe
     from infinitam_tpu.ops.voxel_access import read_sdf_interpolated
 
     valid = pts_cam[..., 3] > -1.0
-    pw = jnp.einsum("ij,...j->...i", inv_M[:3, :3], pts_cam[..., :3]) + inv_M[:3, 3]
+    pw = se3.apply(inv_M, pts_cam[..., :3])
     pv = pw * one_over_voxel
     dt, found = read_sdf_interpolated(read, pv)
     expdt = jnp.exp(-dt * DTUNE)
@@ -96,7 +97,7 @@ def gradient_hessian(
     from infinitam_tpu.ops.voxel_access import read_sdf_interpolated
 
     valid = pts_cam[..., 3] > -1.0
-    c = jnp.einsum("ij,...j->...i", inv_M[:3, :3], pts_cam[..., :3]) + inv_M[:3, 3]
+    c = se3.apply(inv_M, pts_cam[..., :3])
     pv = c * one_over_voxel
     dt, found = read_sdf_interpolated(read, pv)
     ok = valid & found & (dt < 1.0)
@@ -135,5 +136,5 @@ def gradient_hessian(
     w = ddt_ok.astype(jnp.float32)[..., None]
     jm = (j * w).reshape(-1, 6)
     nabla = -jnp.sum(jm, axis=0)  # ∇(−ΣE) = −Σ j
-    H = jnp.einsum("ni,nj->ij", jm, jm.reshape(-1, 6), preferred_element_type=jnp.float32)
+    H = jnp.einsum("ni,nj->ij", jm, jm.reshape(-1, 6), preferred_element_type=jnp.float32, precision=se3.HIGHEST)
     return nabla, H

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import jax.numpy as jnp
 
 from infinitam_tpu.ops.pixel import bilinear
+from infinitam_tpu.utils import se3
 
 
 class TsdfUpdate(NamedTuple):
@@ -46,7 +47,7 @@ def update_voxel_depth(
     H, W = depth.shape
     fx, fy, cx, cy = proj_d[0], proj_d[1], proj_d[2], proj_d[3]
 
-    pc = jnp.einsum("ij,...j->...i", M_d[:3, :3], pt_world) + M_d[:3, 3]
+    pc = se3.apply(M_d, pt_world)
     z = pc[..., 2]
     valid = z > 0
 
@@ -96,7 +97,7 @@ def update_voxel_color(
 
     gate = depth_updated & ~((eta > mu) | (jnp.abs(eta / mu) > 0.25))
 
-    pc = jnp.einsum("ij,...j->...i", M_rgb[:3, :3], pt_world) + M_rgb[:3, 3]
+    pc = se3.apply(M_rgb, pt_world)
     z = jnp.where(pc[..., 2] == 0, 1e-6, pc[..., 2])
     u = fx * pc[..., 0] / z + cx
     v = fy * pc[..., 1] / z + cy

@@ -1,9 +1,10 @@
 """Batched multi-sequence SLAM over a device mesh.
 
-The reference is single-process single-GPU (SURVEY.md §2.7); the TPU-native
-scale-out axis is the BATCH of independent RGB-D sequences: every state array
+The reference is single-process single-GPU (SURVEY.md §2.7); the scale-out
+axis here is the BATCH of independent RGB-D sequences: every state array
 gets a leading [B] dim, the per-frame step is vmapped, and B is sharded over
-a `jax.sharding.Mesh` data axis (ICI within a host, DCN across hosts). Fleet
+a flat `jax.sharding.Mesh` data axis (one lane per GPU; NVLink joins the
+cards of a host all to all, so the mesh needs no topology). Fleet
 metrics (mean tracker energy/inliers) reduce across devices — XLA inserts the
 all-reduce.
 

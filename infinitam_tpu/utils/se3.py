@@ -11,7 +11,18 @@ All functions broadcast over leading batch dimensions.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# Every product on poses, points and normal equations runs in full float32:
+# on a GPU, float32 products otherwise default to TF32 (~3 decimal digits),
+# which leaves rotations visibly non-orthonormal after a few frames.
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """`a @ b` in full float32 precision."""
+    return jnp.matmul(a, b, precision=HIGHEST)
 
 
 def skew(w: jnp.ndarray) -> jnp.ndarray:
@@ -40,7 +51,7 @@ def so3_exp(w: jnp.ndarray) -> jnp.ndarray:
         small, 0.5 - theta_sq / 24.0, (1.0 - jnp.cos(theta)) / jnp.where(small, 1.0, theta_sq)
     )
     W = skew(w)
-    WW = W @ W
+    WW = matmul(W, W)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=w.dtype), W.shape)
     return eye + A[..., None, None] * W + B[..., None, None] * WW
 
@@ -59,11 +70,11 @@ def se3_exp(twist: jnp.ndarray) -> jnp.ndarray:
         small, 1.0 / 6.0 - theta_sq / 120.0, (1.0 - A) / jnp.where(small, 1.0, theta_sq)
     )
     W = skew(w)
-    WW = W @ W
+    WW = matmul(W, W)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=twist.dtype), W.shape)
     R = eye + A[..., None, None] * W + B[..., None, None] * WW
     V = eye + B[..., None, None] * W + C[..., None, None] * WW
-    T = jnp.einsum("...ij,...j->...i", V, t)
+    T = jnp.einsum("...ij,...j->...i", V, t, precision=HIGHEST)
     return pack_rt(R, T)
 
 
@@ -126,7 +137,7 @@ def se3_log(M: jnp.ndarray) -> jnp.ndarray:
         small, 0.5 - theta_sq / 24.0, (1.0 - jnp.cos(theta)) / jnp.where(small, 1.0, theta_sq)
     )
     W = skew(w)
-    WW = W @ W
+    WW = matmul(W, W)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=M.dtype), W.shape)
     # V^{-1} = I - W/2 + (1/θ²)(1 - A/(2B)) W²
     coef = jnp.where(
@@ -135,7 +146,7 @@ def se3_log(M: jnp.ndarray) -> jnp.ndarray:
         (1.0 - A / (2.0 * B)) / jnp.where(small, 1.0, theta_sq),
     )
     Vinv = eye - 0.5 * W + coef[..., None, None] * WW
-    t = jnp.einsum("...ij,...j->...i", Vinv, T)
+    t = jnp.einsum("...ij,...j->...i", Vinv, T, precision=HIGHEST)
     return jnp.concatenate([t, w], axis=-1)
 
 
@@ -154,7 +165,7 @@ def invert(M: jnp.ndarray) -> jnp.ndarray:
     R = M[..., :3, :3]
     t = M[..., :3, 3]
     Rt = jnp.swapaxes(R, -1, -2)
-    return pack_rt(Rt, -jnp.einsum("...ij,...j->...i", Rt, t))
+    return pack_rt(Rt, -jnp.einsum("...ij,...j->...i", Rt, t, precision=HIGHEST))
 
 
 def small_delta(step: jnp.ndarray) -> jnp.ndarray:
@@ -171,9 +182,8 @@ def coerce(M: jnp.ndarray) -> jnp.ndarray:
     (reference: ITMPose::Coerce — log/exp round trip). Uses a polar-like
     Newton iteration which is cheap, jit-friendly, and batch-safe.
 
-    Unbatched 4×4 inputs take a fully SCALAR-unrolled path: tiny-matrix
-    matmuls/transposes on TPU pay ~0.2 ms in layout ops PER CALL (measured),
-    and the tracker calls this once per GN iteration."""
+    Unbatched 4×4 inputs take a fully scalar-unrolled path, which fuses
+    into the tracker's per-iteration scalar graph."""
     if M.ndim == 2 and M.shape == (4, 4):
         r = [[M[i, j] for j in range(3)] for i in range(3)]
         for _ in range(2):
@@ -202,17 +212,28 @@ def coerce(M: jnp.ndarray) -> jnp.ndarray:
     t = M[..., :3, 3]
     # two Newton iterations of R ← R(3I − RᵀR)/2 converge fast for near-orthonormal R
     for _ in range(2):
-        RtR = jnp.swapaxes(R, -1, -2) @ R
+        RtR = matmul(jnp.swapaxes(R, -1, -2), R)
         eye = jnp.broadcast_to(jnp.eye(3, dtype=M.dtype), RtR.shape)
-        R = R @ (1.5 * eye - 0.5 * RtR)
+        R = matmul(R, 1.5 * eye - 0.5 * RtR)
     return pack_rt(R, t)
+
+
+def rotate(M: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
+    """Apply only the rotation part to vectors (normals): (...,4,4) or
+    (...,3,3), (...,3) → (...,3).
+
+    Written as elementwise multiply-adds rather than a product: a K=3
+    contraction over a whole image or voxel batch fuses with its
+    neighbours this way and stays exact float32, where a GEMM library call
+    would be slow (and TF32 at default precision on a GPU)."""
+    R = M[..., :3, :3]
+    return jnp.stack(
+        [R[..., i, 0] * v[..., 0] + R[..., i, 1] * v[..., 1] + R[..., i, 2] * v[..., 2]
+         for i in range(3)],
+        axis=-1,
+    )
 
 
 def apply(M: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Apply rigid transform to points: (...,4,4),(...,3) → (...,3)."""
-    return jnp.einsum("...ij,...j->...i", M[..., :3, :3], p) + M[..., :3, 3]
-
-
-def rotate(M: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    """Apply only the rotation part to vectors (normals)."""
-    return jnp.einsum("...ij,...j->...i", M[..., :3, :3], v)
+    return rotate(M, p) + M[..., :3, 3]

@@ -1,6 +1,6 @@
-// itpu_io — native host runtime for the TPU SLAM framework.
+// itpu_io — native host runtime for the SLAM framework.
 //
-// The compute path is JAX/XLA on the TPU; this library is the native
+// The compute path is JAX/XLA on the accelerator; this library is the native
 // equivalent of the reference's host-side runtime pieces:
 //   - PPM/PGM image IO            (reference: Utils/FileUtils.cpp:251-424)
 //   - threaded dataset prefetcher (reference: Engine/ImageSourceEngine.cpp's

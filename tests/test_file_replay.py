@@ -1,5 +1,5 @@
-"""Real-file end-to-end replay (VERDICT r4 item 7: every prior ATE number
-came from in-memory synthetic frames; this replays committed PGM FILES
+"""Real-file end-to-end replay (the other ATE checks use in-memory
+synthetic frames; this replays committed PGM FILES
 through the full file → raw-depth → disparity-conversion → view → track →
 fuse path, the reference's own validation workflow:
 `./InfiniTAM Teddy/calib.txt Teddy/Frames/%04i.ppm Teddy/Frames/%04i.pgm`

@@ -89,6 +89,34 @@ def test_expected_depth_ranges_bound_surface(fused):
     assert (zmax - zmin)[m].mean() < 0.7 * full
 
 
+@pytest.mark.parametrize("big_cap", [None, 0])
+def test_expected_depth_ranges_near_block_tier(monkeypatch, big_cap):
+    """A block near the camera spans more cells than the per-block tile: the
+    compacted near tier still rasterizes its range; with no room in that
+    tier it is left out and counted in n_too_big."""
+    if big_cap is not None:
+        monkeypatch.setattr(hp, "MINMAX_BIG_CAP", big_cap)
+    hpar = SETTINGS.hashing
+    vol = hv.create_hash(hpar)
+    vol, _vt, widx = hv.insert_blocks(
+        vol, jnp.zeros((hpar.n_entries,), jnp.int32),
+        jnp.array([[0, 0, 1]], jnp.int32), jnp.array([True]), hpar,
+    )
+    rs = hv.create_render_state(hpar)
+    rs = rs._replace(visible_ids=rs.visible_ids.at[0].set(widx[0]))
+    img = (240, 320)  # 0.2 m block 0.2-0.4 m away: ~20 of the 40 cell columns
+    proj = jnp.asarray(default_calib(img[1], img[0]).intrinsics_d.vector)
+    zmin, zmax, n_too_big = hp.expected_depth_ranges(vol, rs, jnp.eye(4), proj, img, SETTINGS)
+    covered = np.asarray(zmax) > np.asarray(zmin)
+    if big_cap is None:
+        assert int(n_too_big) == 0
+        assert covered.mean() > 0.1  # the block's pixels get a real range
+        np.testing.assert_allclose(np.asarray(zmax)[covered].max(), 0.4, atol=1e-5)
+    else:
+        assert int(n_too_big) == 1
+        assert not covered.any()
+
+
 def test_e2e_hash_sequence():
     src = synth.SyntheticSource(CALIB, n_frames=8, img_size=IMG)
     vol, rs, state = hp.create_engine_state(SETTINGS, IMG)
@@ -168,7 +196,7 @@ def test_divergence_keeps_last_good_pose_and_map():
 
 
 def test_compact_allocator_matches_legacy_oracle():
-    """Property test (ADVICE r4): the compact candidate-space allocator and
+    """Property test: the compact candidate-space allocator and
     the legacy full-plane oracle must agree on WHAT exists — the allocated
     block-position set and the visible-entry position set — over a replayed
     sequence that includes out-of-grid geometry (a deliberately small

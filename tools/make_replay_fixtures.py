@@ -1,4 +1,4 @@
-"""Generate the committed real-file replay fixtures (VERDICT r4 item 7):
+"""Generate the committed real-file replay fixtures:
 record ~10 synthetic frames to PGM via RecordingSource (the same path a
 live capture uses), plus the reference-format calib text and ground-truth
 poses. Small 60×80 frames keep the fixture directory ~100 KB.
